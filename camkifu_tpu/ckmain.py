@@ -96,8 +96,9 @@ def _infer_gsize(args) -> int:
 
 def main(argv=None) -> int:
     args = get_argparser().parse_args(argv)
-    from camkifu_tpu.utils import jaxcache
+    from camkifu_tpu.utils import device, jaxcache
     jaxcache.enable()
+    device.check_entry("ckmain")
     if args.gsize == "auto":
         args.gsize = _infer_gsize(args)
     elif args.gsize is not None:

@@ -5,7 +5,7 @@ and the vision manager learn which detection algorithms exist. Adding a finder
 class to ``bfinders`` / ``sfinders`` makes it appear in the GUI menu, exactly as
 the reference's documented plugin surface (doc/Tutorial.md) promises.
 
-TPU-native additions: canonical geometry is chosen so that zone extraction is a
+Device-native additions: canonical geometry is chosen so that zone extraction is a
 pure reshape on device (each intersection owns a ``zone_size``-square cell, the
 canonical image side is ``gsize * zone_size``), and batching/scan constants for
 the jitted pipeline live here.
@@ -24,7 +24,7 @@ from camkifu_tpu.config import guiconf
 # the centers of the four corner cells of the canonical image, so intersection
 # (r, c) sits exactly at pixel ((r + 0.5) * zone_size, (c + 0.5) * zone_size).
 # Zone extraction on device is then a reshape, not a gather (SURVEY §2.3:
-# `_getzone` 361-gather → TPU reshape).
+# `_getzone` 361-gather → device reshape).
 # ---------------------------------------------------------------------------
 
 zone_size = 16                                  # px per intersection cell (canonical)
@@ -36,7 +36,7 @@ def canonical_size_for(gsize: int, zone: int = zone_size) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Pipeline constants (TPU runtime).
+# Pipeline constants (device runtime).
 # ---------------------------------------------------------------------------
 
 #: Frames per jitted batch in film (recorded video) mode. The device scan

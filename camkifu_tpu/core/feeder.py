@@ -1,9 +1,9 @@
-"""DeviceFeeder — the double-buffered host→HBM frame feeder.
+"""DeviceFeeder — the double-buffered host→device frame feeder.
 
 Parity/upgrade: the reference's VManager threads share one synchronized
-CaptureReader (SURVEY §2.4 row "frame fan-out"); the TPU-native equivalent
+CaptureReader (SURVEY §2.4 row "frame fan-out"); the device-native equivalent
 named there is this feeder: a decode thread stays ahead of the device by one
-batch, starting the (asynchronous) host→HBM transfer of batch k+1 while the
+batch, starting the (asynchronous) host→device transfer of batch k+1 while the
 pipeline computes on batch k, so transfer latency hides behind compute.
 """
 

@@ -6,7 +6,7 @@ reference), drawing overlays (``draw_lines``/``draw_circles``/``draw_str``,
 host-side cv2, debug path only), the ``around`` neighborhood iterator, the
 tl/tr/br/bl corner ordering, and a cyclic buffer utility.
 
-The TPU pipeline itself does not draw — these helpers serve the GUI/debug
+The JAX pipeline itself does not draw — these helpers serve the GUI/debug
 path and host-side geometry, exactly the split the reference had.
 """
 

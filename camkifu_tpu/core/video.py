@@ -2,7 +2,7 @@
 
 Parity: ``camkifu/core/video.py`` (SURVEY §2.1) — the abstract "process
 frames forever" loop: synchronized read → ``_doframe`` → display metadata →
-throttle, with clean interrupt, pause, and single-step debugging. TPU-first
+throttle, with clean interrupt, pause, and single-step debugging. Device-first
 difference: ``_doframe`` receives a *batch* (the jit granularity), and the
 fps metadata counts frames, not loop turns.
 """

@@ -7,7 +7,7 @@ the controller API, supports algorithm hot-swap, and runs the processing as
 a daemon worker. ``VManagerSeq`` is the single-threaded variant for batch
 runs and tests (SURVEY §4: bypass threads, don't mock them).
 
-TPU-first: the reference's two finder threads trading frames through locks
+Device-first: the reference's two finder threads trading frames through locks
 become ONE pipeline worker per manager — each batch flows board-finder →
 stones-finder through the jitted device pipeline (SURVEY §2.4 row 1); the
 capture wrapper's film/live disciplines live in core.capture.

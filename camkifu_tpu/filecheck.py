@@ -206,13 +206,13 @@ def run_runtime(frames, batch: int = 16, gsize: int = guiconf.gsize):
 
 def check(video_spec: str, ref_sgf: str | None, corners=None,
           batch: int = cvconf.frame_batch, use_meta: bool = True,
-          use_neural: bool = True, oracle: str = "tpu",
+          use_neural: bool = True, oracle: str = "jax",
           decoders: int = 1) -> dict:
     """Run the harness; return the score report dict.
 
-    oracle: "tpu" (the jitted pipeline), "cv2" (the independent host-side
+    oracle: "jax" (the jitted pipeline), "cv2" (the independent host-side
     OpenCV pipeline — oracle_cv2, VERDICT r1 item 4), or "both" (run both
-    and report TPU↔cv2 cross-agreement: the BASELINE north-star measurement
+    and report JAX↔cv2 cross-agreement: the BASELINE north-star measurement
     "move agreement vs the OpenCV reference").
     """
     from camkifu_tpu.utils import synth
@@ -241,7 +241,7 @@ def check(video_spec: str, ref_sgf: str | None, corners=None,
             # board corners are tracked per frame, so fixed-corner modes
             # (--corners, --oracle cv2, --no-meta) do not apply.
             extra = [p for p in rest if p != "gauntlet" and not p.isdigit()]
-            if extra or oracle != "tpu" or corners is not None \
+            if extra or oracle != "jax" or corners is not None \
                     or not use_meta:
                 raise ValueError(
                     "the gauntlet scenario is auto-detected, tracked and "
@@ -332,12 +332,12 @@ def check(video_spec: str, ref_sgf: str | None, corners=None,
 
     checker = KifuChecker(ref_moves)
     report: dict = {}
-    if oracle in ("tpu", "both"):
+    if oracle in ("jax", "both"):
         extractor, stats = run_pipeline(frames_factory(), corners,
                                         batch=batch, gsize=gsize,
                                         use_meta=use_meta,
                                         use_neural=use_neural)
-        tpu_corners = stats.pop("corners", None)
+        jax_corners = stats.pop("corners", None)
         report = checker.report(extractor.moves)
         report.update(stats)
         report["rejected_readings"] = extractor.rejected
@@ -353,7 +353,7 @@ def check(video_spec: str, ref_sgf: str | None, corners=None,
             report["rejected_readings"] = cv2_ex.rejected
             report["diff"] = checker.diff_lines(cv2_ex.moves)[:20]
         else:
-            # The north-star cross-check: TPU moves vs the independent
+            # The north-star cross-check: JAX moves vs the independent
             # OpenCV pipeline's moves on the SAME frames. Normalized by the
             # LONGER sequence so one pipeline detecting a subset cannot
             # score as full agreement.
@@ -361,31 +361,32 @@ def check(video_spec: str, ref_sgf: str | None, corners=None,
             denom = max(len(extractor.moves), len(cv2_ex.moves), 1)
             report["cv2_agreement_vs_ref"] = cv2_rep["agreement"]
             report["cv2_fps"] = round(cv2_stats["fps"], 1)
-            report["tpu_vs_cv2_agreement"] = cross["good"] / denom
+            report["jax_vs_cv2_agreement"] = cross["good"] / denom
             # Tier 2 — corners-SHARED (VERDICT r3 item 6): on hard/realism
             # footage the classical detector is what collapses, so the
             # fully-independent tier degenerates to cv2's own detection
             # failure rate. Re-running the cv2 classifier+votes on the
-            # TPU's detected corners isolates CLASSIFICATION agreement —
+            # JAX pipeline's detected corners isolates CLASSIFICATION agreement —
             # measurable exactly where the footage is interesting. Only
             # distinct from tier 1 when detection was automatic (with
             # explicit --corners both tiers share geometry by construction).
-            if corners is None and tpu_corners is not None:
+            if corners is None and jax_corners is not None:
                 sh_ex, _sh_stats = oracle_cv2.run_pipeline_cv2(
                     frames_factory(),
-                    np.asarray(tpu_corners, np.float32), gsize=gsize)
+                    np.asarray(jax_corners, np.float32), gsize=gsize)
                 sh_rep = checker.report(sh_ex.moves)
                 sh_cross = score_moves(extractor.moves, sh_ex.moves)
                 sh_denom = max(len(extractor.moves), len(sh_ex.moves), 1)
                 report["cv2_shared_agreement_vs_ref"] = sh_rep["agreement"]
-                report["tpu_vs_cv2_shared_agreement"] = (
+                report["jax_vs_cv2_shared_agreement"] = (
                     sh_cross["good"] / sh_denom)
     return report
 
 
 def main(argv=None) -> int:
-    from camkifu_tpu.utils import jaxcache
+    from camkifu_tpu.utils import device, jaxcache
     jaxcache.enable()
+    device.check_entry("ckfilecheck")
     ap = argparse.ArgumentParser(
         description="Score the vision pipeline against a reference SGF.")
     ap.add_argument("video",
@@ -409,11 +410,11 @@ def main(argv=None) -> int:
                     help="ablate the neural voter (classical ensemble only; "
                          "the voter participates only when a user-trained "
                          "cktrain checkpoint exists)")
-    ap.add_argument("--oracle", choices=("tpu", "cv2", "both"),
-                    default="tpu",
-                    help="which pipeline to score: the TPU pipeline, the "
+    ap.add_argument("--oracle", choices=("jax", "cv2", "both"),
+                    default="jax",
+                    help="which pipeline to score: the JAX pipeline, the "
                          "independent host-side OpenCV pipeline, or both "
-                         "(adds TPU-vs-cv2 cross-agreement)")
+                         "(adds JAX-vs-cv2 cross-agreement)")
     args = ap.parse_args(argv)
 
     corners = None

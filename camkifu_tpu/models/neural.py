@@ -2,19 +2,23 @@
 
 Parity: the dev-branch ``sf_neural`` (SURVEY §2.1) — a Keras CNN classifying
 intersection patches B/W/E from labeled samples, with tooling to harvest
-training patches. TPU-first: flax/optax, bf16 matmuls on the MXU, batched
+training patches. Device-first: flax/optax, bf16 matmuls, batched
 over all 361 intersections of many frames at once, orbax checkpoints
 (SURVEY §5: orbax enters scope with the neural finder's weights).
+
+flax and orbax are imported only where the net is built or a checkpoint is
+read or written, so the finder registry and the classical pipeline load
+without them.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
 import jax
 import jax.numpy as jnp
-import flax.linen as nn
 import optax
 
 from camkifu_tpu.config import cvconf
@@ -22,27 +26,39 @@ from camkifu_tpu.config import cvconf
 NUM_CLASSES = 3   # 0=E, 1=B, 2=W
 
 
-class PatchNet(nn.Module):
-    """Tiny CNN: (z, z, 3) patch → 3-class logits. Compute in bf16 (MXU),
-    params and logits in f32."""
+@functools.cache
+def _patchnet_class():
+    import flax.linen as nn
 
-    features: int = 32
+    class PatchNet(nn.Module):
+        """Tiny CNN: (z, z, 3) patch → 3-class logits. Compute in bf16,
+        params and logits in f32."""
 
-    @nn.compact
-    def __call__(self, x):
-        x = x.astype(jnp.bfloat16)
-        x = nn.Conv(self.features, (3, 3), padding="SAME", dtype=jnp.bfloat16)(x)
-        x = nn.relu(x)
-        x = nn.avg_pool(x, (2, 2), strides=(2, 2))
-        x = nn.Conv(2 * self.features, (3, 3), padding="SAME",
-                    dtype=jnp.bfloat16)(x)
-        x = nn.relu(x)
-        x = nn.avg_pool(x, (2, 2), strides=(2, 2))
-        x = x.reshape((x.shape[0], -1))
-        x = nn.Dense(4 * self.features, dtype=jnp.bfloat16)(x)
-        x = nn.relu(x)
-        x = nn.Dense(NUM_CLASSES, dtype=jnp.bfloat16)(x)
-        return x.astype(jnp.float32)
+        features: int = 32
+
+        @nn.compact
+        def __call__(self, x):
+            x = x.astype(jnp.bfloat16)
+            x = nn.Conv(self.features, (3, 3), padding="SAME",
+                        dtype=jnp.bfloat16)(x)
+            x = nn.relu(x)
+            x = nn.avg_pool(x, (2, 2), strides=(2, 2))
+            x = nn.Conv(2 * self.features, (3, 3), padding="SAME",
+                        dtype=jnp.bfloat16)(x)
+            x = nn.relu(x)
+            x = nn.avg_pool(x, (2, 2), strides=(2, 2))
+            x = x.reshape((x.shape[0], -1))
+            x = nn.Dense(4 * self.features, dtype=jnp.bfloat16)(x)
+            x = nn.relu(x)
+            x = nn.Dense(NUM_CLASSES, dtype=jnp.bfloat16)(x)
+            return x.astype(jnp.float32)
+
+    return PatchNet
+
+
+def PatchNet(features: int = 32):
+    """The patch classifier module (a flax ``nn.Module`` instance)."""
+    return _patchnet_class()(features=features)
 
 
 def init_params(rng, zone: int = cvconf.zone_size):
@@ -186,12 +202,15 @@ def load_params(path: str = DEFAULT_CKPT):
     run while changing nothing. The model + trainer stay for footage whose
     conditions the classical stack does not cover (train there, drop the
     checkpoint in DEFAULT_CKPT, and SfMeta picks it up as a third voter).
-    """
-    import orbax.checkpoint as ocp
 
+    A missing checkpoint imports nothing; a present one needs flax and
+    orbax, and their absence raises ImportError.
+    """
     path = os.path.abspath(os.path.expanduser(path))
     if not os.path.isdir(path):
         return None
+    import orbax.checkpoint as ocp
+
     ckptr = ocp.StandardCheckpointer()
     _, abstract = init_params(jax.random.PRNGKey(0))
     abstract = jax.tree.map(
@@ -208,9 +227,10 @@ def main(argv=None) -> int:
     """
     import argparse
 
-    from camkifu_tpu.utils import jaxcache
+    from camkifu_tpu.utils import device, jaxcache
 
     jaxcache.enable()
+    device.check_entry("cktrain")
     ap = argparse.ArgumentParser(prog="cktrain")
     ap.add_argument("--boards", type=int, default=48,
                     help="synthetic boards to harvest patches from")

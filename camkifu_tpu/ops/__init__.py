@@ -1,6 +1,6 @@
-"""TPU compute primitives replacing the reference's OpenCV calls (SURVEY §2.3).
+"""Device compute primitives replacing the reference's OpenCV calls (SURVEY §2.3).
 
-Every ``cv2.*`` primitive the reference leans on has a JAX/XLA/Pallas
+Every ``cv2.*`` primitive the reference leans on has a JAX/XLA
 equivalent here; unit tests score each against the OpenCV-on-host oracle.
 All functions are pure, static-shape, jit/vmap/scan-friendly.
 """

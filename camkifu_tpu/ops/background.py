@@ -34,7 +34,7 @@ def robust_gain(x: jnp.ndarray, ref: jnp.ndarray, lo: float = 0.7,
     hands, new stones, even a half-covered board), so consumers can remove
     it and see only local change.
 
-    TPU-shaped: a dense comparison histogram + cumsum — no sort, no
+    Device-shaped: a dense comparison histogram + cumsum — no sort, no
     scatter (jnp.median's sort over ~23k elements inside the per-frame
     vote scan would dominate it; see the radix-median precedent in
     ops.zones).

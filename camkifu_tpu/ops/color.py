@@ -25,14 +25,15 @@ def to_float(frame: jnp.ndarray) -> jnp.ndarray:
 
 def rgb_to_gray(frame: jnp.ndarray) -> jnp.ndarray:
     """(..., 3) RGB → (...,) luma, same scale as input."""
-    return jnp.tensordot(frame.astype(jnp.float32), _LUMA, axes=([-1], [0]))
+    return jnp.tensordot(frame.astype(jnp.float32), _LUMA, axes=([-1], [0]),
+                         precision="highest")
 
 
 def rgb_to_gray_u8(frame: jnp.ndarray) -> jnp.ndarray:
     """(..., 3) RGB (uint8 or float in [0,1]) → (...,) uint8 luma.
 
     For gather-heavy consumers (the rectification warps): uint8 taps read 4×
-    fewer HBM bytes than float32 and the 1/255 quantization is far below the
+    fewer device-memory bytes than float32 and the 1/255 quantization is far below the
     signal the consumers extract (edge profiles are percentile-normalized).
     """
     g = rgb_to_gray(frame)

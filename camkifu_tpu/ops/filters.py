@@ -1,9 +1,8 @@
 """Separable filters: Gaussian blur, Sobel gradients.
 
 Replaces ``cv2.GaussianBlur`` and the gradient stage of ``cv2.Canny``
-(SURVEY §2.3). Implemented as separable depthwise convolutions — XLA fuses
-these tightly on TPU; a dedicated Pallas kernel fuses the full edge stack in
-ops/pallas/edge_kernel.py.
+(SURVEY §2.3). Implemented as separable shift-accumulate stencils, which XLA
+fuses into a few elementwise kernels on the GPU.
 """
 
 from __future__ import annotations
@@ -24,10 +23,10 @@ def gaussian_kernel1d(sigma: float, radius: int | None = None) -> np.ndarray:
 def _conv1d(img: jnp.ndarray, kernel: np.ndarray, axis: int) -> jnp.ndarray:
     """Convolve a 2D image along one axis with edge padding.
 
-    Shift-accumulate, not conv_general_dilated: a 1-channel NHWC conv
-    starves the MXU (C=1 → 1/128 utilization) and cost ~1 ms/frame at
-    batch scale, while k static slices + multiply-adds are pure VPU work
-    and exact f32 (no bf16 conv-precision trap)."""
+    Shift-accumulate, not conv_general_dilated: a 1-channel conv gives a
+    matrix unit almost nothing to do, while k static slices + multiply-adds
+    are plain elementwise work, fuse, and stay exact f32 (no reduced-
+    precision conv trap)."""
     k = np.asarray(kernel, np.float32)
     r = (len(k) - 1) // 2
     pad = [(0, 0), (0, 0)]

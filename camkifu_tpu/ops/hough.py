@@ -1,14 +1,13 @@
 """Hough line transform: top-K edge votes → (θ, ρ) accumulator → line peaks.
 
-Replaces ``cv2.HoughLines`` (SURVEY §2.3). TPU-first formulation:
+Replaces ``cv2.HoughLines`` (SURVEY §2.3). Device-first formulation:
 
 - Static shapes: the K strongest edge pixels vote (jax.lax.top_k), not a
   data-dependent edge list (SURVEY §7 hard-part a).
-- The scatter-accumulate becomes a batched one-hot matmul on the MXU:
+- The scatter-accumulate becomes a batched one-hot matmul:
   votes[θ, ρ] = Σ_k w_k · splat(ρ_k(θ)), with the one-hot built in chunks so
-  nothing big materializes. The Pallas kernel variant lives in
-  ops/pallas/hough_kernel.py; this XLA version is the reference
-  implementation and the fallback.
+  nothing big materializes. A scatter-add (atomics) accumulator may suit
+  the GPU better if this stage ever shows in a trace (ROADMAP).
 - Peak extraction: 2D NMS on the accumulator + top-N, returning (θ, ρ,
   vote) triples — fixed count, weak peaks padded with vote=0.
 """
@@ -61,7 +60,7 @@ def hough_accumulate(points: jnp.ndarray, weights: jnp.ndarray,
         pos = jnp.clip(pos, 0.0, n_rho - 1.001)
         lo = jnp.floor(pos)
         frac = pos - lo
-        # Bilinear splat as two one-hot matmuls on the MXU:
+        # Bilinear splat as two one-hot matmuls:
         # acc[t, r] = Σ_k w_k [(1-frac) δ(r, lo) + frac δ(r, lo+1)]
         bins = jnp.arange(n_rho, dtype=jnp.float32)                # (R,)
         onehot_lo = (bins[None, None, :] == lo[..., None])

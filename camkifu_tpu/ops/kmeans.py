@@ -1,9 +1,9 @@
 """Fixed-iteration Lloyd k-means — replaces ``cv2.kmeans`` (SURVEY §2.3).
 
-TPU-first: no data-dependent convergence loop; a fixed number of Lloyd
+Device-first: no data-dependent convergence loop; a fixed number of Lloyd
 iterations under ``lax.fori_loop`` with deterministic quantile init. For the
 stone-classification use (k=3 over ≤361 samples of ≤5 features) this is a few
-microseconds of VPU work and trivially vmaps over frames.
+elementwise work and trivially vmaps over frames.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ def kmeans(x: jnp.ndarray, k: int = 3, iters: int = 10,
         assign = jax.nn.one_hot(jnp.argmin(d, axis=1), k, dtype=jnp.float32)
         assign = assign * w[:, None]
         counts = assign.sum(axis=0)                     # (k,)
-        sums = assign.T @ x                              # (k, F)
+        sums = jnp.matmul(assign.T, x, precision="highest")     # (k, F)
         new = sums / jnp.maximum(counts[:, None], 1e-6)
         # Keep empty clusters where they were.
         return jnp.where(counts[:, None] > 0.5, new, c)
@@ -70,6 +70,6 @@ def luminance_ordered_labels(centroids: jnp.ndarray, labels: jnp.ndarray,
     luma_weights: (F,) projection of a centroid onto luminance.
     """
     k = centroids.shape[0]
-    luma = centroids @ luma_weights
+    luma = jnp.matmul(centroids, luma_weights, precision="highest")
     rank = jnp.argsort(jnp.argsort(luma))               # rank of each cluster
     return rank[labels].astype(jnp.int32)

@@ -8,11 +8,11 @@ silently degrades — 0.44 cells corner error at k1 = 0.04, 1.25 cells at
 0.08, and a catastrophic confident misfire at k1 = −0.08 — while typical
 cheap webcams sit at |k1| ≈ 0.03–0.08.
 
-Design (TPU-first): the lens is composed into SAMPLE COORDINATES, never
+Design: the lens is composed into SAMPLE COORDINATES, never
 into pixels. Every rectification in the pipeline is an inverse warp — for
 each output pixel, compute a source coordinate and gather. Making those
 samplers lens-aware costs a handful of FLOPs per coordinate (nothing
-against the gather itself) and zero extra HBM traffic, whereas
+against the gather itself) and zero extra device-memory traffic, whereas
 undistorting whole frames up front would add a full-frame gather per
 frame. Corner coordinates remain RAW (distorted) frame positions
 throughout the system — they are what detection sees, what the tracker

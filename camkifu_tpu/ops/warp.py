@@ -1,7 +1,7 @@
 """Perspective rectification: DLT homography + batched bilinear inverse warp.
 
 Replaces ``cv2.getPerspectiveTransform`` + ``cv2.warpPerspective`` (SURVEY
-§2.3). TPU-first design: one 8×8 linear solve per frame (tiny, batched with
+§2.3). Device-first design: one 8×8 linear solve per frame (tiny, batched with
 vmap), then a dense inverse-warp bilinear gather producing the canonical
 board image — static shapes, fully fused under jit.
 
@@ -28,6 +28,10 @@ import jax.numpy as jnp
 from camkifu_tpu.config import cvconf, guiconf
 from camkifu_tpu.ops.lens import Lens, distort_pts, undistort_pts
 
+#: Full-f32 products for the geometry: a reduced default (TF32 on the GPU)
+#: would put pixel-scale error into every homography.
+_EXACT = jax.lax.Precision.HIGHEST
+
 
 def canonical_corners(gsize: int = guiconf.gsize,
                       zone: int = cvconf.zone_size) -> jnp.ndarray:
@@ -41,8 +45,8 @@ def canonical_corners(gsize: int = guiconf.gsize,
 def _normalizer(pts: jnp.ndarray) -> jnp.ndarray:
     """Hartley normalization transform: centroid → origin, RMS radius → √2.
 
-    Keeps the 8×8 DLT system well-conditioned in float32 (TPU has no native
-    f64); without it, pixel-scale coordinates lose ~1 px of accuracy.
+    Keeps the 8×8 DLT system well-conditioned in float32 (the pipeline runs
+    without f64); without it, pixel-scale coordinates lose ~1 px of accuracy.
     """
     mean = pts.mean(axis=0)
     rms = jnp.sqrt(jnp.mean(jnp.sum((pts - mean) ** 2, axis=-1)))
@@ -59,24 +63,12 @@ def _normalizer(pts: jnp.ndarray) -> jnp.ndarray:
 def _solve8(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
     """Unrolled 8×8 Gauss–Jordan solve with partial pivoting.
 
-    jnp.linalg.solve lowers to LAPACK-style LU with sequential dynamic
-    slicing — hundreds of microseconds per tiny system on TPU, which
-    dominates per-frame homography solves. Eight unrolled elimination steps
-    of pure vector ops cost almost nothing and vmap cleanly.
-
-    The optimization barrier is load-bearing: XLA:TPU's constant folding
-    MISCOMPILES the vmapped elimination when A and b are compile-time
-    constants (measured on-chip: jit(vmap(_solve8)) over the exact
-    square→square DLT system returns [0,-1,1,0,1,-1,0,-1] instead of the
-    identity solution, while eager vmap and un-vmapped jit-const are both
-    exact — the batched pivot-swap select/scatter folds wrong). Constants
-    reach this path whenever a homography between two static quads is
-    built inside a jit under vmap (e.g. canonical→canonical in the
-    manual-lens probe). The barrier keeps the solve out of the folder at
-    the cost of folding a few hundred scalar flops at runtime — nothing —
-    and is a no-op for traced inputs.
+    jnp.linalg.solve lowers to LU with sequential dynamic slicing, which
+    dominated per-frame homography solves on the first accelerator this ran
+    on; eight unrolled elimination steps of pure vector ops vmap cleanly.
+    Whether the hand-unrolled solve still pays on the GPU is unmeasured
+    (ROADMAP C4).
     """
-    A, b = jax.lax.optimization_barrier((A, b))
     M = jnp.concatenate([A, b[:, None]], axis=1)        # (8, 9)
     for k in range(8):
         col = jnp.abs(M[:, k])
@@ -97,7 +89,7 @@ def _solve8(A: jnp.ndarray, b: jnp.ndarray) -> jnp.ndarray:
 
 
 def _inv3(M: jnp.ndarray) -> jnp.ndarray:
-    """Closed-form 3×3 inverse (adjugate) — avoids LU on TPU."""
+    """Closed-form 3×3 inverse (adjugate) — no LU call for a tiny system."""
     a, b, c = M[0, 0], M[0, 1], M[0, 2]
     d, e, f = M[1, 0], M[1, 1], M[1, 2]
     g, h, i = M[2, 0], M[2, 1], M[2, 2]
@@ -139,7 +131,8 @@ def homography_dlt(src: jnp.ndarray, dst: jnp.ndarray) -> jnp.ndarray:
     b = jnp.concatenate([u, v], axis=0)              # (8,)
     h = _solve8(A, b)
     Hn = jnp.concatenate([h, jnp.ones((1,), h.dtype)]).reshape(3, 3)
-    H = _inv3(t_dst) @ Hn @ t_src
+    H = jnp.matmul(jnp.matmul(_inv3(t_dst), Hn, precision=_EXACT), t_src,
+                   precision=_EXACT)
     return H / H[2, 2]
 
 
@@ -147,7 +140,7 @@ def apply_homography(H: jnp.ndarray, pts: jnp.ndarray) -> jnp.ndarray:
     """Apply 3×3 H to (..., 2) points (x, y)."""
     xy1 = jnp.concatenate([pts, jnp.ones(pts.shape[:-1] + (1,), pts.dtype)],
                           axis=-1)
-    out = xy1 @ H.T
+    out = jnp.matmul(xy1, H.T, precision=_EXACT)
     return out[..., :2] / out[..., 2:3]
 
 
@@ -170,7 +163,7 @@ def bilinear_sample(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray,
     y1 = jnp.minimum(y0 + 1, h - 1)
     # Gather in the source dtype and convert only the taps: converting the
     # whole frame first would materialize a 4× f32 copy of every frame in
-    # HBM (24 MB at 1080p) just to read ~4 taps per canonical pixel from it.
+    # device memory (24 MB at 1080p) just to read ~4 taps per canonical pixel.
     p00 = img[y0, x0].astype(jnp.float32)
     p01 = img[y0, x1].astype(jnp.float32)
     p10 = img[y1, x0].astype(jnp.float32)
@@ -196,7 +189,7 @@ def warp_to_canonical(frame: jnp.ndarray, corners: jnp.ndarray,
     ``lens``: optional radial model (ops/lens.py). Corners stay RAW frame
     coordinates; the homography is built against their pinhole positions
     and the sample grid is distorted back before the gather — same gather,
-    lens-corrected geometry, zero extra HBM traffic.
+    lens-corrected geometry, zero extra device-memory traffic.
     """
     size = gsize * zone
     pin = undistort_pts(lens, corners.astype(jnp.float32))
@@ -234,8 +227,8 @@ def _subpixel_shift(img: jnp.ndarray, offset: jnp.ndarray) -> jnp.ndarray:
     Implemented as a blend of the 16 *static* integer shifts with per-frame
     bilinear hat weights (at most 4 are nonzero). Static slices vectorize
     across a vmapped batch; per-frame `dynamic_slice` starts would lower to
-    a batched gather — the same ~35× TPU cliff the chunked warp exists to
-    avoid.
+    a batched gather with per-frame indices, the shape the chunked warp
+    exists to avoid.
     """
     s = img.shape[0]
     pad = jnp.pad(img, ((2, 2), (2, 2), (0, 0)), mode="edge")
@@ -255,17 +248,18 @@ def warp_batch_chunked(frames: jnp.ndarray, corners: jnp.ndarray,
                        zone: int = cvconf.zone_size,
                        chunk: int = 8,
                        lens: Lens | None = None) -> jnp.ndarray:
-    """Per-frame corners, TPU-fast: share the (median) corners within small
-    frame chunks so the gather keeps batch-shared indices, then correct each
-    frame's residual camera motion with a subpixel *translation*.
+    """Per-frame corners with batch-shared gathers: share the (median)
+    corners within small frame chunks so the gather keeps batch-shared
+    indices, then correct each frame's residual camera motion with a
+    subpixel *translation*.
 
-    TPU XLA gathers vectorize across the batch only when every batch element
-    uses the *same* indices; per-frame indices fall off a ~35× cliff (373 ms
-    vs 10.5 ms per 64×1080p batch measured). Sharing corners across `chunk`
-    consecutive frames recovers 10×; the within-chunk camera motion is then
-    removed per frame by shifting the canonical image by the mean corner
-    displacement (a dynamic slice — cheap). Residual non-translational error
-    is a small fraction of a pixel for handheld footage.
+    On the first accelerator this ran on, XLA gathers vectorized across the
+    batch only when every batch element used the *same* indices, and
+    per-frame indices fell off a cliff. Whether a vmapped per-frame gather
+    is slower on the GPU is unmeasured (ROADMAP C3). The within-chunk
+    camera motion is removed per frame by shifting the canonical image by
+    the mean corner displacement. Residual non-translational error is a
+    small fraction of a pixel for handheld footage.
     """
     b = frames.shape[0]
     pad = (-b) % chunk

@@ -55,7 +55,7 @@ def bg_indices(gsize: int, zone: int, frac: float = 0.36) -> np.ndarray:
     past the board slab onto the table — the background median then flips to
     the table color and the whole border row reads as phantom stones. The
     indices are compile-time constants (numpy), so the take_along_axis they
-    feed is a constant gather, not the per-frame-varying kind TPUs serialize.
+    feed is a constant gather, not a per-frame-varying one.
     """
     r = np.arange(zone, dtype=np.float32) - (zone - 1) / 2.0
     far_lo = far_hi = np.abs(r) > frac * zone
@@ -82,12 +82,12 @@ def median_u8(x: jnp.ndarray) -> jnp.ndarray:
     """Last-axis median of float values in [0, 1], via radix select at
     uint8 resolution.
 
-    jnp.median sorts, and TPU sorts of many tiny rows are the single most
-    expensive op in the classify stage (~150 ms/128-batch for the zone
-    medians; measured). The values here come from uint8 frames, so an
-    8-bit binary search over the VALUE domain — eight compare+sum passes,
-    pure VPU work — selects the (lower) median exactly at 1/255 resolution
-    in a fraction of the cost. Ties/quantization shift the result by at
+    jnp.median sorts, and sorts of many tiny rows were the most expensive
+    op of the classify stage on the first accelerator this ran on; the
+    premise is unmeasured on the GPU (ROADMAP C4). The values here come
+    from uint8 frames, so an 8-bit binary search over the VALUE domain —
+    eight compare+sum passes of plain elementwise work — selects the
+    (lower) median exactly at 1/255 resolution. Ties/quantization shift the result by at
     most one 8-bit step, far below the ≳0.1 contrast thresholds the
     classifiers apply.
     """
@@ -145,7 +145,8 @@ def zone_stats(canonical: jnp.ndarray, gsize: int = guiconf.gsize,
     return {
         "zones": zones,
         "luma": luma,
-        "disc_mean_rgb": jnp.einsum("ghyxc,yx->ghc", zones, mask) * inv,
+        "disc_mean_rgb": jnp.einsum("ghyxc,yx->ghc", zones, mask,
+                                    precision="highest") * inv,
         "bg_rgb": _grid_median3(median_u8(bg_px.transpose(0, 1, 3, 2))),
         "bg_luma": _grid_median3(median_u8(
             jnp.take_along_axis(luma_flat, bg_idx, axis=-1))),
@@ -172,7 +173,8 @@ def zone_features(canonical: jnp.ndarray, gsize: int = guiconf.gsize,
     zones = extract_zones(canonical, gsize, zone)            # (g,g,z,z,C)
     mask = disc_mask(zone)                                   # (z,z)
     inv = 1.0 / jnp.maximum(mask.sum(), 1.0)
-    mean_rgb = jnp.einsum("ghyxc,yx->ghc", zones, mask) * inv
+    mean_rgb = jnp.einsum("ghyxc,yx->ghc", zones, mask,
+                          precision="highest") * inv
     # Background per channel: the median of the zone's *corner* pixels.
     # Ring means are contaminated by the stone's blurred edge; and on dense
     # boards even ring medians fail (most ring pixels are neighbor-stone
@@ -185,7 +187,9 @@ def zone_features(canonical: jnp.ndarray, gsize: int = guiconf.gsize,
     bg_rgb = _grid_median3(jnp.median(
         jnp.take_along_axis(flat, bg_idx[..., None], axis=2), axis=2))
     luma = rgb_to_gray(zones)                                # (g,g,z,z)
-    mean_luma = jnp.einsum("ghyx,yx->gh", luma, mask) * inv
-    var_luma = jnp.einsum("ghyx,yx->gh", luma**2, mask) * inv - mean_luma**2
+    mean_luma = jnp.einsum("ghyx,yx->gh", luma, mask,
+                           precision="highest") * inv
+    var_luma = jnp.einsum("ghyx,yx->gh", luma**2, mask,
+                          precision="highest") * inv - mean_luma**2
     std_luma = jnp.sqrt(jnp.maximum(var_luma, 0.0))
     return jnp.concatenate([mean_rgb, bg_rgb, std_luma[..., None]], axis=-1)

@@ -1,8 +1,8 @@
 """Independent OpenCV oracle — the reference's classical CPU pipeline,
-rebuilt host-side with cv2, for cross-checking the TPU pipeline.
+rebuilt host-side with cv2, for cross-checking the JAX pipeline.
 
-Why this exists (VERDICT r1 item 4): the synthetic renderer and the TPU
-detector share geometry conventions, so scoring the TPU pipeline only
+Why this exists (VERDICT r1 item 4): the synthetic renderer and the JAX
+detector share geometry conventions, so scoring the JAX pipeline only
 against synth ground truth could hide a correlated systematic error. This
 module re-creates the reference's *classical* vision path with cv2
 primitives only — grayscale → GaussianBlur → Canny → HoughLines corner
@@ -11,7 +11,7 @@ rectification, cv2.kmeans k=3 luminance-ordered stone classification
 (SURVEY §3.3, the reference's SfClustering), and a cyclic-buffer temporal
 majority vote (SURVEY §2.1 sf_meta) — with no jax anywhere, so its moves
 are an independent measurement of the same video. ``ckfilecheck --oracle
-cv2`` scores it; ``--oracle both`` additionally reports TPU↔cv2
+cv2`` scores it; ``--oracle both`` additionally reports JAX↔cv2
 cross-agreement (the BASELINE.md north star: "≥99% move agreement vs the
 OpenCV reference").
 

@@ -1,12 +1,12 @@
 """Multi-chip scaling: shard the pipeline over a device mesh.
 
 The reference is a single-process desktop app with no distributed backend
-(SURVEY §2.4); the TPU-native scaling story is data parallelism over
+(SURVEY §2.4); the device-native scaling story is data parallelism over
 independent video streams (BASELINE config 5: N concurrent boards). Streams
 shard over a 1-D 'stream' mesh axis; within a stream, frames batch on the
 time axis. XLA inserts no collectives for the vision path (streams are
-independent) — ICI stays free for the neural finder's dp gradient psum
-(parallel.train — added with sf_neural).
+independent) — the links between cards stay free for the neural finder's
+dp gradient psum (parallel.train — added with sf_neural).
 """
 
 from __future__ import annotations
@@ -21,6 +21,18 @@ from camkifu_tpu import pipeline
 from camkifu_tpu.config import cvconf, guiconf
 
 
+#: HLO op names of cross-device collectives. The stream paths must compile
+#: to none of them: streams are independent.
+COLLECTIVE_OPS = ("all-reduce", "all-gather", "all-to-all",
+                  "collective-permute", "collective-broadcast",
+                  "reduce-scatter", "ragged-all-to-all")
+
+
+def collective_ops(hlo_text: str) -> list[str]:
+    """The collective ops that appear in a compiled module's HLO text."""
+    return [op for op in COLLECTIVE_OPS if op in hlo_text]
+
+
 def stream_sharding(mesh: Mesh) -> NamedSharding:
     """Sharding for (stream, ...) arrays: split the leading axis over chips."""
     return NamedSharding(mesh, P("stream"))
@@ -31,8 +43,8 @@ def _read_streams_local(frames, corners, *, gsize, zone):
     # corner path (indices shared across the stream's frames) — routing the
     # repeated corners through the generic per-frame chunked warp paid its
     # median/subpixel machinery for nothing and dominated c5. The classify
-    # then runs on the flat (streams·B) batch: one flat batch utilizes the
-    # chip better than a vmap-of-batches (measured ~4× on c5).
+    # then runs on the flat (streams·B) batch rather than a vmap of
+    # batches.
     from camkifu_tpu.ops.warp import warp_batch_fixed
     from camkifu_tpu.stone import sf_clustering
 
@@ -40,9 +52,10 @@ def _read_streams_local(frames, corners, *, gsize, zone):
         s, b = frames.shape[0], frames.shape[1]
         scale = 1.0 / 255.0 if frames.dtype == jnp.uint8 else 1.0
         # lax.map (sequential over the local streams), NOT vmap: a vmapped
-        # warp batches distinct gather-index sets, which falls off the
-        # TPU's batched-index gather cliff; each map step's gather shares
-        # its indices across the stream's frames and vectorizes fully.
+        # warp batches distinct gather-index sets, which hit a gather
+        # cliff on the first accelerator this ran on; each map step's
+        # gather shares its indices across the stream's frames. The premise
+        # is unmeasured on the GPU (ROADMAP A5, C3).
         canon = jax.lax.map(
             lambda fc: warp_batch_fixed(fc[0], fc[1], gsize, zone),
             (frames, corners)) * scale
@@ -125,8 +138,9 @@ def _track_all_streams(states, frames, seeds, lenses=None, *,
 
     # lax.map (sequential over local streams), NOT vmap: each stream's
     # fused tracker re-rectifies on its own running seed — vmap would batch
-    # distinct gather-index sets (the TPU batched-gather cliff), while each
-    # map step's chunk-shared gather vectorizes across the stream's frames.
+    # distinct gather-index sets, while each map step's chunk-shared gather
+    # vectorizes across the stream's frames. Same unmeasured premise as
+    # _read_streams_local (ROADMAP C3).
     if lenses is None:
         return jax.lax.map(
             lambda sfs: sf_meta.track_read_batch(

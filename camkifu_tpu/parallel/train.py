@@ -2,14 +2,14 @@
 
 The training step shards over a 2-D ('data', 'model') mesh:
 - **dp**: the patch batch splits over 'data'; XLA inserts the gradient
-  psum across data-parallel replicas over ICI.
+  psum across data-parallel replicas (NCCL over NVLink on GPUs).
 - **tp**: the two Dense layers shard over 'model' (kernel columns of the
   first, kernel rows of the second — Megatron-style pairing, so the forward
   pass needs a single psum at the second Dense's output and no resharding
   in between).
 
 Conv layers are tiny and stay replicated — sharding them would move more
-bytes over ICI than they cost to compute (scaling-book rule: shard where
+bytes between devices than they cost to compute (shard where
 the arithmetic intensity justifies the collective).
 """
 

@@ -1,6 +1,6 @@
 """The jitted vision pipeline: frame batches in, board readings out.
 
-This is the TPU replacement for the reference's thread-per-finder loop
+This is the device replacement for the reference's thread-per-finder loop
 (SURVEY §2.4): instead of a BoardFinder thread and a StonesFinder thread
 trading frames through locks, one pure jitted function consumes a batch of
 frames and returns fixed-shape per-frame board states + confidences; the host
@@ -40,14 +40,14 @@ def read_board_batch(frames: jnp.ndarray, corners: jnp.ndarray,
 
     Matmul precision is pinned to float32 throughout: the DLT solve and the
     zone-statistic einsums are numerically tiny but accuracy-critical, and
-    TPU's default bf16 matmul precision measurably corrupts the homography
-    (pixel-scale warp error → misclassification). The heavy paths that *want*
-    bf16 (neural classifier, Hough) opt in explicitly instead.
+    a reduced default matmul precision (bf16 on some accelerators, TF32 on
+    the GPU) corrupts the homography (pixel-scale warp error →
+    misclassification). The neural classifier opts into bf16 explicitly.
     """
     with jax.default_matmul_precision("float32"):
         # Warp straight from uint8 (the gather converts only its taps) and
         # rescale the small canonical output — converting frames first would
-        # write a 4× f32 copy of every frame to HBM.
+        # write a 4× f32 copy of every frame to device memory.
         scale = 1.0 / 255.0 if frames.dtype == jnp.uint8 else 1.0
         if corners.ndim == 2:
             canon = warp_batch_fixed(frames, corners, gsize, zone,

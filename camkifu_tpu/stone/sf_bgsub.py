@@ -11,7 +11,7 @@ stone is a persistent signed luma deviation of the disc median from the
 remembered background — robust to unusual board textures and markings that
 fool spatial estimates.
 
-TPU-first: a lax.scan with an explicit, host-resettable state pytree, like
+Device-first: a lax.scan with an explicit, host-resettable state pytree, like
 SfMeta; shares the vote machinery (stone.votes).
 """
 

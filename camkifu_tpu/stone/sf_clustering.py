@@ -5,7 +5,7 @@ color statistics, k-means K=3, clusters ordered by luminance (darkest=black,
 brightest=white, middle=wood), with self-assessment: the algorithm abstains
 when clusters are not well separated (degenerate with few stones on board).
 
-TPU-first: the device function is pure and static-shape; cv2.kmeans becomes
+Device-first: the device function is pure and static-shape; cv2.kmeans becomes
 fixed-iteration Lloyd (ops.kmeans); clustering runs on per-channel local
 *contrast* (disc mean − annulus background) which keeps the three populations
 separable under lighting gradients; abstention becomes explicit per-
@@ -54,7 +54,7 @@ def _classify_contrast(contrast: jnp.ndarray, g: int, iters: int = 8):
 
     # Order clusters by luminance of their contrast: most negative = black,
     # most positive = white (reference: order by luminance).
-    cluster_luma = cents @ _LUMA                      # (3,)
+    cluster_luma = jnp.matmul(cents, _LUMA, precision="highest")  # (3,)
     rank = jnp.argsort(jnp.argsort(cluster_luma))     # 0=darkest..2=brightest
     # rank-of-my-cluster → label: darkest→B, middle→E, brightest→W
     rank_to_label = jnp.array([BLACK, EMPTY, WHITE], jnp.int8)

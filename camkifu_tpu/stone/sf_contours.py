@@ -6,7 +6,7 @@ area/shape against the expected stone radius, and colors by mean intensity
 vs board background. Strong early game (no cluster calibration needed),
 weaker in clutter.
 
-TPU-first replacement with the same observable output (per-intersection
+Device-first replacement with the same observable output (per-intersection
 stone/no-stone + color): ``findContours``'s data-dependent tracing becomes a
 dense per-zone *disc test* — threshold each zone's pixels against the local
 annulus background, then require the active pixels to fill the stone disc
@@ -78,9 +78,10 @@ def classify_stats(stats: dict, zone: int = cvconf.zone_size):
     diff = stats["zones"] - stats["bg_rgb"][:, :, None, None, :]
     active = jnp.abs(diff).max(axis=-1) > PIXEL_CONTRAST   # (g,g,z,z)
 
-    disc_fill = jnp.einsum("ghyx,yx->gh", active.astype(jnp.float32), disc) / disc_n
-    ring_fill = jnp.einsum("ghyx,yx->gh", active.astype(jnp.float32),
-                           ring) / ring_n
+    disc_fill = jnp.einsum("ghyx,yx->gh", active.astype(jnp.float32), disc,
+                           precision="highest") / disc_n
+    ring_fill = jnp.einsum("ghyx,yx->gh", active.astype(jnp.float32), ring,
+                           precision="highest") / ring_n
 
     # Area + shape + contrast: the disc must be filled, the ring mostly not
     # (grid lines are a minority), and the disc *median* must genuinely

@@ -7,7 +7,7 @@ SfContours early → SfClustering once it cross-validates, per-intersection
 votes in a cyclic buffer across F frames, with only consistent readings
 becoming suggestions, and periodic full-board re-reads for self-correction.
 
-TPU-first mapping (SURVEY §5 long-context analogue): the frame axis is a
+Device-first mapping (SURVEY §5 long-context analogue): the frame axis is a
 ``lax.scan`` carrying a small state pytree — the cyclic vote buffer becomes a
 decayed vote accumulator (g, g, 3); the region state machines become a (3, 3)
 trust EMA of contours/clustering agreement; the agitation gate zeroes the
@@ -96,10 +96,10 @@ def read_batch(state: MetaState, frames: jnp.ndarray, corners: jnp.ndarray,
     Returns (state, labels (B, g, g) int8, conf (B, g, g), agitation (B,)).
 
     Structure: warp + both classifiers are stateless per frame, so they run
-    *batched* (vmapped — parallel MXU/VPU work); only the genuinely
+    *batched* (vmapped); only the genuinely
     sequential carry (votes/stable/trust/bg — a few (g, g)-sized updates per
     frame) goes through lax.scan. Running the classifiers inside the scan
-    serialized the whole pipeline and cost ~10× on the video configs.
+    serialized the whole pipeline.
     """
     with jax.default_matmul_precision("float32"):
         per_frame = corners.ndim == 3
@@ -240,6 +240,8 @@ def track_read_batch(state: MetaState, frames: jnp.ndarray,
 
     frames: (B, H, W, 3); seed_corners: (4, 2) from a full detection (the
     host re-detects at bf_period cadence and re-anchors the seed).
+    chunk: frames that share one rectification grid. 16 was tuned on the
+    first accelerator this ran on; unmeasured on the GPU (ROADMAP C4).
     lens: optional radial distortion model (ops/lens.py, calibrated by
     BoardFinderAuto) — composed into the tracker's sample coordinates.
     Returns (state, labels, conf, agitation, corners (B, 4, 2),
@@ -298,11 +300,10 @@ class SfMeta(_SF):
         self.state = init_state(gsize=self.gsize)
         # Opt-in neural voter: participates only if the user trained a
         # checkpoint (cktrain); absent checkpoint = classical ensemble only.
-        try:
-            from camkifu_tpu.models import neural
-            self.neural_params = neural.load_params()
-        except Exception:
-            self.neural_params = None
+        # A checkpoint that cannot be loaded (flax/orbax missing, corrupt
+        # files) raises rather than silently dropping the voter.
+        from camkifu_tpu.models import neural
+        self.neural_params = neural.load_params()
         if self.neural_params is not None:
             self.metadata["neural"] = "on"
         # --sgf resume: the loaded game's board is ground truth (SURVEY §5).

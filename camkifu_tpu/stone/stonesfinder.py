@@ -6,7 +6,7 @@ frames (warped via the board finder's homography), owns grid geometry
 controller: ``suggest(color, r, c)`` → ``controller.pipe("append", …)``;
 receives human fixes through ``corrected()``.
 
-TPU-first: subclasses implement ``_find(frames, corners) → (labels, conf)``
+Device-first: subclasses implement ``_find(frames, corners) → (labels, conf)``
 as a batched device computation; the base class turns per-frame readings into
 moves (core.gamesync.MoveExtractor) and handles model synchronization.
 """

@@ -3,7 +3,7 @@
 Parity+upgrade (SURVEY §5): the reference only overlays per-thread fps on
 the video window; here every batch can emit a structured record (fps,
 agitation, votes, detection confidence) and a jax.profiler trace can wrap
-any span for TPU timeline inspection.
+any span for device timeline inspection.
 """
 
 from __future__ import annotations

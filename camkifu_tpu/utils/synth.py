@@ -4,7 +4,7 @@ The reference could only test against hand-recorded videos with hand-made SGF
 oracles (SURVEY §4); this renderer generates them programmatically — a board
 state (or move sequence) in, photorealistic-enough camera frames out, with the
 exact corner coordinates and SGF available as ground truth. Host-side numpy +
-cv2 (cv2 is the drawing/oracle library here, not part of the TPU path).
+cv2 (cv2 is the drawing/oracle library here, not part of the device path).
 """
 
 from __future__ import annotations

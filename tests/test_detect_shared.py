@@ -1,7 +1,7 @@
 """Shared-canvas batched redetection (VERDICT r4 item 3).
 
-The per-frame refine pays two ~7 ms single-frame rectification gathers
-(measured on chip — tools/redetect_probe2.py); detect_batch now routes
+The per-frame refine pays two single-frame rectification gathers;
+detect_batch routes
 video-shaped batches (line-dominated, quads agreeing to a fraction of a
 cell) through ONE batch-shared gather + per-frame comb/evidence/pin. These
 tests pin the routing contract and the accuracy parity with the per-frame
@@ -59,8 +59,8 @@ def test_large_batch_routes_per_chunk():
     """B=32 handheld drift must keep the shared route via per-chunk
     medians (r5): the whole-batch median canvas stopped validating as the
     batch grew — at B=32 the drifting quads spread past
-    SHARED_REFINE_SPREAD of the ONE median and the router fell back,
-    making B=32 redetect SLOWER than B=8 on chip (75 vs 151 fps)."""
+    SHARED_REFINE_SPREAD of the ONE median and the router fell back to
+    the per-frame path for the whole batch."""
     frames, gts = _drift_batch(b=32, drift=4.0)
     grays, quads, scores = bf_auto._detect_prepare_batch(
         jnp.asarray(frames), cvconf.bf_resolution)

@@ -33,8 +33,10 @@ def test_paced_camera_timing():
 def test_perf_md_latency_closeout_consistent():
     """Non-slow smoke (VERDICT r4 item 2): PERF.md's recorded live-latency
     close-out must stay present and self-consistent — p50 ≤ p99, both
-    above the structural floor the config implies (fill 2.0 + vote commit
-    1.75 at 4 fps / batch 8), and neither degenerate nor stale-placeholder.
+    above the structural floor the config implies (the vote commit, 1.75 s
+    at 4 fps; the batch fill adds up to 2.0 s more, but a stone that
+    appears late in a batch waits less, so the fill is a bound, not a
+    floor), and neither degenerate nor stale-placeholder.
     """
     import pathlib
     import re
@@ -45,7 +47,7 @@ def test_perf_md_latency_closeout_consistent():
     p99 = re.search(r"p99 frame→SGF \| \*\*([\d.]+) s\*\*", text)
     assert p50 and p99, "PERF.md latency close-out table missing"
     p50, p99 = float(p50.group(1)), float(p99.group(1))
-    floor = 2.0 + 1.75
+    floor = 1.75
     assert floor <= p50 <= p99 <= 60.0, (p50, p99)
 
 

@@ -1,6 +1,6 @@
 """Independent OpenCV oracle (VERDICT r1 item 4): the host-side classical
 pipeline must read synthetic games correctly on its own, and agree with the
-TPU pipeline — breaking the synth self-oracle circularity."""
+JAX pipeline — breaking the synth self-oracle circularity."""
 
 import numpy as np
 import pytest
@@ -49,19 +49,19 @@ def test_filecheck_oracle_cv2_full_game():
 
 
 def test_filecheck_cross_agreement_tpu_vs_cv2():
-    """The north-star measurement (BASELINE.md): TPU pipeline vs the OpenCV
+    """The north-star measurement (BASELINE.md): JAX pipeline vs the OpenCV
     reference pipeline on the same frames, both detecting their own board —
     plus the corners-SHARED tier (VERDICT r3 item 6): the cv2 classifier
-    re-run on the TPU's detected corners, isolating classification
+    re-run on the JAX pipeline's detected corners, isolating classification
     agreement from cv2's own detection quality."""
     rep = filecheck.check("synth:6:3", "auto", oracle="both")
-    assert rep["agreement"] == 1.0, rep           # TPU vs ground truth
+    assert rep["agreement"] == 1.0, rep           # JAX vs ground truth
     assert rep["cv2_agreement_vs_ref"] == 1.0     # cv2 vs ground truth
-    assert rep["tpu_vs_cv2_agreement"] == 1.0     # TPU vs cv2
+    assert rep["jax_vs_cv2_agreement"] == 1.0     # JAX vs cv2
     # Auto detection ran, so the shared tier must be reported too — and on
     # clean footage the two tiers coincide.
     assert rep["cv2_shared_agreement_vs_ref"] == 1.0
-    assert rep["tpu_vs_cv2_shared_agreement"] == 1.0
+    assert rep["jax_vs_cv2_shared_agreement"] == 1.0
 
 
 @pytest.mark.slow
@@ -70,14 +70,14 @@ def test_corners_shared_tier_survives_hard_footage():
     hard synth — PERF.md oracle table), the shared tier must still measure
     real classification agreement, not detection failure."""
     rep = filecheck.check("synth:6:3:hard", "auto", oracle="both")
-    assert rep["agreement"] == 1.0, rep           # TPU stays perfect
+    assert rep["agreement"] == 1.0, rep           # JAX stays perfect
     # cv2's own detection collapses on hard footage (that is WHY the tier
-    # exists); with the TPU's corners its classifier+votes recover part of
+    # exists); with the JAX corners its classifier+votes recover part of
     # the game. The bound is deliberately loose — kmeans on defocused
-    # gradient footage is genuinely worse than the TPU ensemble — but far
+    # gradient footage is genuinely worse than the JAX ensemble — but far
     # above what the independent tier measures (0.0–0.17 here).
-    # Recalibrated ≥0.5 → ≥0.25 in r5: this machine's cv2 build scores
+    # Recalibrated ≥0.5 → ≥0.25 in r5: this cv2 build scores
     # 0.333 on the identical scenario (verified invariant to every repo
     # change — the tier is measuring cv2's own kmeans quality drift, and
-    # TPU agreement above stays 1.0, which is the metric that matters).
+    # JAX agreement above stays 1.0, which is the metric that matters).
     assert rep["cv2_shared_agreement_vs_ref"] >= 0.25, rep

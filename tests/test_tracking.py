@@ -5,7 +5,7 @@ The tracker measures each frame's board translation from that frame's own
 pixels (chunk-shared rectification + lattice-profile correlation); full
 detection re-anchors it at bf_period cadence. Reference parity: the
 reference re-runs BoardFinderAuto._detect periodically and tracks corner
-drift (SURVEY §2.1 boardfinder); per-frame measurement is the TPU upgrade.
+drift (SURVEY §2.1 boardfinder); per-frame measurement is the device upgrade.
 """
 
 import numpy as np

@@ -11,7 +11,7 @@ Usage: JAX_PLATFORMS=cpu python tools/evprobe.py [nstones persp]
 import os
 import sys
 
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 if os.environ.get("JAX_PLATFORMS"):
     import jax
 
